@@ -66,25 +66,31 @@ def test_duprm_roundtrip_preserves_fields(tmp_path):
 
 
 @pytest.fixture
-def tiny_euka_db(tmp_path):
+def tiny_euka_db(tmp_path, toy_world):
     """Materialize a one-taxon euka-format DB on disk: graph.npz via
-    build-db plus hand-written .clade/.bins sidecars."""
-    ref = "/root/reference/test/reconstructInputSeq/target_graph.gfa"
+    build-db from the seeded toy GFA plus hand-written .clade/.bins
+    sidecars."""
+    from vgan_tpu.graph.packed import PackedGraph
+
+    gfa, _fq, _reads = toy_world
     d = tmp_path / "edb"
     d.mkdir()
-    assert cli.main(["build-db", ref, str(d)]) == 0
+    assert cli.main(["build-db", str(gfa), str(d)]) == 0
     os.rename(d / "graph.npz", d / "toy_db.npz")
+    g = PackedGraph.load(str(d / "toy_db.npz"))
+    lo, hi = g.min_id, g.max_id
     # one clade covering all nodes (id name pairwise_dist n_paths lo hi)
-    (d / "toy_db.clade").write_text("0 ToyTaxon 0.03 5 1 28\n")
+    (d / "toy_db.clade").write_text(f"0 ToyTaxon 0.03 {g.n_paths} {lo} {hi}\n")
     # 4 bins with entropy above/below threshold
+    cuts = np.linspace(lo, hi + 1, 5).astype(int)
     bins = "ToyTaxon " + " ".join(
-        f"{lo}.0 {hi}.0 1.5" for lo, hi in ((1, 7), (8, 14), (15, 21), (22, 28))
+        f"{a}.0 {b - 1}.0 1.5" for a, b in zip(cuts[:-1], cuts[1:])
     )
     (d / "toy_db.bins").write_text(bins + "\n")
     return d
 
 
-def test_gam2prof_cli(tiny_euka_db, tmp_path):
+def test_gam2prof_cli(tiny_euka_db, toy_world, tmp_path):
     """gam2prof replays a GAM against the bins and writes per-clade
     5p/3p profile + count files (`src/gam2prof.cpp:29-228`)."""
     from vgan_tpu.graph.packed import PackedGraph
@@ -93,9 +99,7 @@ def test_gam2prof_cli(tiny_euka_db, tmp_path):
 
     graph = PackedGraph.load(str(tiny_euka_db / "toy_db.npz"))
     mapper = BatchedMapper(graph, k=20, w=10)
-    reads = fastx.read_fastq(
-        "/root/reference/test/reconstructInputSeq/test_reads.fq"
-    )
+    reads = fastx.read_fastq(str(toy_world[1]))
     alns = [a for a in mapper.map_reads(reads) if a.identity != 0]
     assert alns
     gampath = str(tmp_path / "replay.gam")
@@ -123,14 +127,14 @@ def test_version_cli(capsys):
     assert outp.startswith("v3")
 
 
-def test_euka_cli_e2e(tiny_euka_db, tmp_path):
+def test_euka_cli_e2e(tiny_euka_db, toy_world, tmp_path):
     """Full euka CLI run against the materialized one-taxon DB: maps
     the fixture reads, detects the taxon with relaxed gates, writes
     the four reference-schema TSVs."""
     out = str(tmp_path / "euka_out")
     rc = cli.main(
         ["euka", "--euka_dir", str(tiny_euka_db), "--dbprefix", "toy_db",
-         "-fq1", "/root/reference/test/reconstructInputSeq/test_reads.fq",
+         "-fq1", str(toy_world[1]),
          "-o", out, "--minMQ", "0", "--minFrag", "1", "--minBins", "1",
          "--maxBins", "3", "--entropy", "0.5", "-k", "20", "-w", "10",
          "--iter", "200", "--burnin", "10"]
@@ -243,7 +247,7 @@ def test_vcf2fasta(tmp_path, capsys):
     assert ">S1" in capsys.readouterr().out
 
 
-def test_plot_subcommands(tiny_euka_db, tmp_path, capsys):
+def test_plot_subcommands(tiny_euka_db, toy_world, tmp_path, capsys):
     """viz/plots.py (plottingScripts equivalents): a real euka run's
     outputs render to per-taxon PNGs; soibean trace/k-curve plots
     render from real Result files; tree-from-output annotates
@@ -257,7 +261,7 @@ def test_plot_subcommands(tiny_euka_db, tmp_path, capsys):
 
     # euka run on the toy DB -> real output TSVs/profs
     out = str(tmp_path / "eu")
-    fq = "/root/reference/test/reconstructInputSeq/test_reads.fq"
+    fq = str(toy_world[1])
     big = tmp_path / "reads.fq"
     big.write_text(open(fq).read() * 6)
     rc = cli.main([

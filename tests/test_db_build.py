@@ -7,11 +7,11 @@ import numpy as np
 import pytest
 
 from vgan_tpu import cli
-from vgan_tpu.io import fastx
+from vgan_tpu.graph.synth import mt_backbone
 
 
 @pytest.fixture(scope="module")
-def hap_world(tmp_path_factory, ref):
+def hap_world(tmp_path_factory):
     """Reference slice + 4 haplotypes with known SNPs and a phylotree:
 
             ROOT
@@ -21,7 +21,7 @@ def hap_world(tmp_path_factory, ref):
        A1   A2
     """
     d = tmp_path_factory.mktemp("hcworld")
-    seqs, _ = fastx.read_fasta(str(ref / "test/input_files/rCRS.fa"))
+    seqs = [mt_backbone(0)]
     base = seqs[0][:2400].upper().replace("N", "A")
     rng = np.random.default_rng(11)
 
@@ -93,15 +93,14 @@ def test_build_hc_db_and_run_haplocart(hap_world, tmp_path):
     assert "A1" in ptxt and "ROOT" in ptxt
 
 
-def test_build_taxon_db_subsets(tmp_path, ref):
+def test_build_taxon_db_subsets(tmp_path):
     """make_graph_files.sh-equivalent: per-taxon npz from a super-graph
     + clade node ranges, loadable and locally complete."""
     from vgan_tpu.db.taxa import build_taxon_db, subset_graph
     from vgan_tpu.graph.packed import PackedGraph
-    from vgan_tpu.graph.synth import build_haplotype_graph
-    from vgan_tpu.io.fastx import read_fasta
+    from vgan_tpu.graph.synth import build_haplotype_graph, mt_backbone
 
-    seqs, _ = read_fasta(str(ref / "test/input_files/rCRS.fa"))
+    seqs = [mt_backbone(0)]
     g = build_haplotype_graph(
         seqs[0][:4000], n_haplotypes=3, n_variants=10, seed=1
     )[0]

@@ -7,7 +7,6 @@ import pytest
 
 from vgan_tpu.graph.reconstruct import reconstruct_graph_sequence
 from vgan_tpu.infer.abundance_mcmc import run_mcmc
-from vgan_tpu.models import phred
 from vgan_tpu.models.damage import DamageModel
 from vgan_tpu.pipelines import euka
 
@@ -43,57 +42,6 @@ def test_damage_model(ref):
     np.testing.assert_allclose(none, np.eye(4))
 
 
-def _oracle_score(graph, clades, chunks, a, dm):
-    """Literal transcription of the readGAM3 per-base loop
-    (`src/readGAM_Euka.h:184-492`)."""
-    qscore = phred.qscore_vec()
-    graph_seq, read_seq, _ = reconstruct_graph_sequence(graph, a.path, a.sequence)
-    first = a.path.mappings[0].position.node_id
-    c_n, _ = euka.assign_clade(chunks, first)
-    pd = clades[c_n].dist
-    isrev = a.path.mappings[0].position.is_reverse
-    Lseq = len(a.sequence)
-    n = Lseq - 1 if isrev else 0
-    in_l = not_l = 0.0
-    soft = 0
-    qual = list(a.quality) + [0] * len(graph_seq)
-    for m in range(len(graph_seq)):
-        gb, rb = graph_seq[m], read_seq[m]
-        bq = qual[m]
-        if gb == "N" or rb == "N":
-            ll = l2 = euka.BASE_FREQ_LOG["ACGTN-S?".find(rb) if rb in "ACGTN-S" else 7]
-        elif gb == "-" or rb == "-":
-            ll, l2 = np.log(0.002), np.log(0.2)
-        elif gb in "WMKRYBDHV" or rb in "WMKRYBDHV":
-            ll, l2 = np.log((1 - pd) * 0.001), np.log(0.001)
-        elif gb == "S" or rb == "S":
-            soft += 1
-            q = qscore[bq]
-            ll = np.log(1 - q) if soft % 3 == 0 else np.log(q / 3)
-            l2 = np.log(0.25)
-        else:
-            q = qscore[bq]
-            pre = np.empty(4)
-            for bpo, c in enumerate("ACGT"):
-                pre[bpo] = (1 - pd) if c == gb else pd * euka.T_T_RATIO["ACGT".find(gb), bpo]
-            D = dm.dinuc(min(max(Lseq, 1), 1000), n)
-            post = pre @ D
-            terms = []
-            for bpd, c in enumerate("ACGT"):
-                e = (1 - q) if c == rb else q / 3
-                terms.append(np.log(post[bpd] * e))
-            mx = max(terms)
-            ll = mx + np.log(sum(np.exp(t - mx) for t in terms))
-            l2 = np.log(1 - euka.MODEL2_MISMATCH) if gb == rb else np.log(
-                euka.MODEL2_MISMATCH
-            )
-        in_l += ll
-        not_l += l2
-        if rb != "-":
-            n = n - 1 if isrev else n + 1
-    return in_l, not_l
-
-
 @pytest.fixture(scope="module")
 def toy_clades(toy_graph):
     clades = [
@@ -124,7 +72,9 @@ def test_scorer_matches_oracle(ref, toy_graph, toy_reads, toy_clades, dmg):
     ]
     il, nl = scorer._score_device(batch, recon)
     for i, a in enumerate(batch):
-        want_in, want_not = _oracle_score(toy_graph, clades, chunks, a, dm)
+        want_in, want_not = euka.score_read_reference(
+            toy_graph, clades, chunks, a, dm
+        )
         assert il[i] == pytest.approx(want_in, rel=1e-9), a.name
         assert nl[i] == pytest.approx(want_not, rel=1e-9), a.name
 

@@ -172,3 +172,61 @@ def test_device_scorer_consensus_mode(toy_db, toy_reads):
     )
     np.testing.assert_allclose(got, want, rtol=1e-8)
     assert int(np.argmax(got)) == int(np.argmax(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_score_batch_matches_numpy_reference(dtype):
+    """The jitted scorer vs its plain numpy f64 twin on a synthetic
+    batch (valid-mask, qual>=90 and unsupported-path terms in play)."""
+    import jax.numpy as jnp
+
+    from vgan_tpu.pipelines import haplocart_device as hcd
+
+    support = hcd.synth_support(n_nodes=300, n_paths=96)
+    batch = hcd.synth_batch(n_reads=64, n_nodes=300, dtype=jnp.dtype(dtype))
+    rng = np.random.default_rng(4)
+    batch = batch._replace(
+        valid=jnp.asarray(rng.random(batch.valid.shape) < 0.9),
+        use_bep=jnp.asarray(rng.random(batch.use_bep.shape) < 0.2),
+    )
+    got = np.asarray(hcd.score_batch(batch, hcd.make_tables(support, jnp.dtype(dtype))))
+    want = hcd.score_batch_reference(batch, support)
+    np.testing.assert_allclose(got, want, rtol=1e-12 if dtype == "float64" else 1e-5)
+    assert int(np.argmax(got)) == int(np.argmax(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_score_batch_on_gpu_matches_numpy_reference(gpu, dtype):
+    """The scorer compiled for the card at the real DB's path count
+    (f32 relies on the contraction's HIGHEST precision: TF32 would move
+    the per-path sums by ~1e-3 relative)."""
+    import jax.numpy as jnp
+
+    from vgan_tpu.pipelines import haplocart_device as hcd
+
+    support = hcd.synth_support(n_nodes=2048, n_paths=5179)
+    batch = hcd.synth_batch(n_reads=512, n_nodes=2048, dtype=jnp.dtype(dtype))
+    got = np.asarray(hcd.score_batch(batch, hcd.make_tables(support, jnp.dtype(dtype))))
+    want = hcd.score_batch_reference(batch, support)
+    np.testing.assert_allclose(got, want, rtol=1e-12 if dtype == "float64" else 1e-5)
+    assert int(np.argmax(got)) == int(np.argmax(want))
+
+
+@pytest.mark.parametrize("M, n_nodes", [(1, 4), (257, 16), (4096, 3000)])
+def test_segment_sum_fixed_order_matches_segment_sum(M, n_nodes):
+    """The fixed-order per-node sum equals jax.ops.segment_sum (empty
+    nodes stay 0) and is bit-identical across repeated calls."""
+    import jax
+    import jax.numpy as jnp
+
+    from vgan_tpu.pipelines.haplocart_device import segment_sum_fixed_order
+
+    rng = np.random.default_rng(M)
+    d = jnp.asarray(rng.normal(size=M) * 100)
+    node = jnp.asarray(rng.integers(0, n_nodes, size=M).astype(np.int32))
+    f = jax.jit(segment_sum_fixed_order, static_argnums=2)
+    got = np.asarray(f(d, node, n_nodes))
+    want = np.asarray(jax.ops.segment_sum(d, node, num_segments=n_nodes))
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-9)
+    assert np.asarray(f(d, node, n_nodes)).tobytes() == got.tobytes()

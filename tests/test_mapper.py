@@ -149,14 +149,17 @@ def test_fast_batch_parity():
     bit-identical alignments — scores, MQ, identity, full mapping/edit
     structure — to the object-based path it replaces, on an
     mtDNA-scale world with errors/indels."""
-    from vgan_tpu.graph.synth import build_haplotype_graph, sample_reads
-    from vgan_tpu.io.fastx import read_fasta
+    from vgan_tpu.graph.synth import (
+        build_haplotype_graph,
+        mt_backbone,
+        sample_reads,
+    )
     from vgan_tpu.mapper import batch_map
     from vgan_tpu.mapper.giraffe import BatchedMapper
 
     if batch_map.load_native() is None:
         pytest.skip("native lib unavailable")
-    seqs, _ = read_fasta("/root/reference/test/input_files/rCRS.fa")
+    seqs = [mt_backbone(0)]
     graph, _ = build_haplotype_graph(
         seqs[0][:6000], n_haplotypes=8, n_variants=40, seed=3
     )
@@ -185,14 +188,17 @@ def test_fast_batch_parity():
 def test_chunked_table_parity():
     """Double-buffered chunked map_reads_table == one-shot (per-read
     results are independent; chunking must not change anything)."""
-    from vgan_tpu.graph.synth import build_haplotype_graph, sample_reads
-    from vgan_tpu.io.fastx import read_fasta
+    from vgan_tpu.graph.synth import (
+        build_haplotype_graph,
+        mt_backbone,
+        sample_reads,
+    )
     from vgan_tpu.mapper import batch_map
     from vgan_tpu.mapper.giraffe import BatchedMapper
 
     if batch_map.load_native() is None:
         pytest.skip("native lib unavailable")
-    seqs, _ = read_fasta("/root/reference/test/input_files/rCRS.fa")
+    seqs = [mt_backbone(0)]
     graph, _ = build_haplotype_graph(
         seqs[0][:6000], n_haplotypes=8, n_variants=40, seed=3
     )
@@ -221,8 +227,11 @@ def test_native_seed_hits_parity():
     join (_batch_hits) hit-for-hit — same (read, path, strand, diag)
     multisets — on an mtDNA-scale world incl. N bases and an RYmer
     index."""
-    from vgan_tpu.graph.synth import build_haplotype_graph, sample_reads
-    from vgan_tpu.io.fastx import read_fasta
+    from vgan_tpu.graph.synth import (
+        build_haplotype_graph,
+        mt_backbone,
+        sample_reads,
+    )
     from vgan_tpu.mapper import batch_map
     from vgan_tpu.mapper.giraffe import (
         BatchedMapper, _batch_hits, _batch_hits_native,
@@ -231,7 +240,7 @@ def test_native_seed_hits_parity():
 
     if batch_map.load_native() is None:
         pytest.skip("native lib unavailable")
-    seqs, _ = read_fasta("/root/reference/test/input_files/rCRS.fa")
+    seqs = [mt_backbone(0)]
     graph, _ = build_haplotype_graph(
         seqs[0][:6000], n_haplotypes=8, n_variants=40, seed=3
     )
@@ -292,11 +301,10 @@ def test_native_graph_aligner_parity(toy_graph, ref):
 # ------------------------------------------------------ paired mapping
 @pytest.fixture(scope="module")
 def mt_world():
-    from vgan_tpu.graph.synth import build_haplotype_graph
-    from vgan_tpu.io.fastx import read_fasta
+    from vgan_tpu.graph.synth import build_haplotype_graph, mt_backbone
     from vgan_tpu.mapper.giraffe import BatchedMapper
 
-    seqs, _ = read_fasta("/root/reference/test/input_files/rCRS.fa")
+    seqs = [mt_backbone(0)]
     graph, _ = build_haplotype_graph(
         seqs[0][:4000], n_haplotypes=4, n_variants=20, seed=5
     )
@@ -401,11 +409,15 @@ def test_safari_rescues_deaminated_reads():
     exact k-mer seeds were destroyed by C->T / G->A deamination
     (functional here; the reference parses the flag but never shipped
     the mapper, `src/Euka.cpp:300-303`)."""
-    from vgan_tpu.graph.synth import build_haplotype_graph, sample_reads
-    from vgan_tpu.io.fastx import Read, read_fasta
+    from vgan_tpu.graph.synth import (
+        build_haplotype_graph,
+        mt_backbone,
+        sample_reads,
+    )
+    from vgan_tpu.io.fastx import Read
     from vgan_tpu.mapper.giraffe import BatchedMapper
 
-    seqs, _ = read_fasta("/root/reference/test/input_files/rCRS.fa")
+    seqs = [mt_backbone(0)]
     graph, _ = build_haplotype_graph(
         seqs[0][:4000], n_haplotypes=4, n_variants=20, seed=5
     )
@@ -488,11 +500,10 @@ def test_index_build_vectorized_matches_loop():
     oracle field-for-field (incl. first-seen posting order and max_occ
     filtering) on a multi-haplotype world with reverse steps and an
     RYmer index."""
-    from vgan_tpu.graph.synth import build_haplotype_graph
-    from vgan_tpu.io.fastx import read_fasta
+    from vgan_tpu.graph.synth import build_haplotype_graph, mt_backbone
     from vgan_tpu.mapper.index import MinimizerIndex
 
-    seqs, _ = read_fasta("/root/reference/test/input_files/rCRS.fa")
+    seqs = [mt_backbone(0)]
     graph, _ = build_haplotype_graph(
         seqs[0][:4000], n_haplotypes=6, n_variants=50, seed=13
     )

@@ -1,5 +1,5 @@
-"""mtDNA-scale end-to-end: synthetic multi-haplotype graph built from
-the real rCRS sequence, mapped + classified like HaploCart does.
+"""mtDNA-scale end-to-end: synthetic multi-haplotype graph built over
+the seeded 16,569-bp backbone, mapped + classified like HaploCart does.
 
 The real hcfiles DB (5,179 haplotypes) is distributed out-of-band and
 absent from the reference snapshot, so the graph is synthesized at the
@@ -8,7 +8,11 @@ ground truth is known by construction."""
 import numpy as np
 import pytest
 
-from vgan_tpu.graph.synth import build_haplotype_graph, sample_reads
+from vgan_tpu.graph.synth import (
+    build_haplotype_graph,
+    mt_backbone,
+    sample_reads,
+)
 from vgan_tpu.io import fastx
 from vgan_tpu.mapper.giraffe import BatchedMapper
 from vgan_tpu.models import mutation
@@ -16,10 +20,8 @@ from vgan_tpu.pipelines import haplocart as hc
 
 
 @pytest.fixture(scope="module")
-def rcrs(ref):
-    seqs, ids = fastx.read_fasta(str(ref / "test/input_files/rCRS.fa"))
-    assert len(seqs[0]) > 16000
-    return seqs[0]
+def rcrs():
+    return mt_backbone(0)
 
 
 @pytest.fixture(scope="module")

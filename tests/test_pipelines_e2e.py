@@ -148,7 +148,7 @@ def test_duprm_cli(ref, tmp_path, toy_reads):
 
 def test_version_cli(capsys):
     assert cli.main(["version"]) == 0
-    assert "tpu" in capsys.readouterr().out
+    assert capsys.readouterr().out.strip() == cli.VERSION
 
 
 def test_map_subcommand_roundtrip(toy_db_dir, ref, tmp_path, toy_graph):
@@ -197,7 +197,7 @@ def test_haplocart_error_cases(toy_db_dir, ref):
                             fq1=str(ref / "test/input_files/rCRS.fa")))
 
 
-def test_columnar_path_matches_object_path(tmp_path, ref):
+def test_columnar_path_matches_object_path(tmp_path):
     """The columnar production path (map_reads_table ->
     filter_sort_dedup -> score_table_device) reproduces the object
     path's prediction, read count and final_vec on an error-bearing
@@ -205,8 +205,11 @@ def test_columnar_path_matches_object_path(tmp_path, ref):
     Python objects)."""
     import numpy as np
 
-    from vgan_tpu.graph.synth import build_haplotype_graph, sample_reads
-    from vgan_tpu.io.fastx import read_fasta
+    from vgan_tpu.graph.synth import (
+        build_haplotype_graph,
+        mt_backbone,
+        sample_reads,
+    )
     from vgan_tpu.mapper.batch_map import load_native
     from vgan_tpu.mapper.giraffe import BatchedMapper
     from vgan_tpu.pipelines import haplocart as hc
@@ -215,7 +218,7 @@ def test_columnar_path_matches_object_path(tmp_path, ref):
 
     if load_native() is None:
         pytest.skip("native lib unavailable")
-    seqs, _ = read_fasta("/root/reference/test/input_files/rCRS.fa")
+    seqs = [mt_backbone(0)]
     graph, _ = build_haplotype_graph(
         seqs[0][:6000], n_haplotypes=8, n_variants=40, seed=3
     )
@@ -276,22 +279,25 @@ def test_columnar_gam_input_matches_object(toy_db_dir, ref):
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
 
 
-def test_stream_scoring_matches_oneshot(ref):
+def test_stream_scoring_matches_oneshot():
     """score_table_stream (chunked map->dedup->build->score pipeline)
     == filter_sort_dedup + score_table_device on the same reads, with
     duplicate reads planted across chunk boundaries (the streaming
     dedup must keep exactly the one-shot representative set)."""
     import numpy as np
 
-    from vgan_tpu.graph.synth import build_haplotype_graph, sample_reads
-    from vgan_tpu.io.fastx import read_fasta
+    from vgan_tpu.graph.synth import (
+        build_haplotype_graph,
+        mt_backbone,
+        sample_reads,
+    )
     from vgan_tpu.mapper import batch_map
     from vgan_tpu.mapper.giraffe import BatchedMapper
     from vgan_tpu.pipelines import hc_columnar as hcc
 
     if batch_map.load_native() is None:
         pytest.skip("native lib unavailable")
-    seqs, _ = read_fasta(str(ref / "test/input_files/rCRS.fa"))
+    seqs = [mt_backbone(0)]
     graph, _ = build_haplotype_graph(
         seqs[0][:6000], n_haplotypes=8, n_variants=40, seed=3
     )

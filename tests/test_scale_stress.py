@@ -12,7 +12,6 @@ the pipelines complete.
 """
 import resource
 import time
-import zipfile
 
 import numpy as np
 import pytest
@@ -137,16 +136,14 @@ def test_euka_scorer_at_scale(euka_scale_world):
 
 
 def test_soibean_counts25_at_ursidae_scale():
-    """counts25 [R, P, 25] with the real Ursidae tree; 4 chains x 50k
+    """counts25 [R, P, 25] with the seeded Ursidae tree; 4 chains x 50k
     iters through the production sampler."""
+    from vgan_tpu.graph.synth import ursidae_tree
     from vgan_tpu.infer import tree_mcmc
     from vgan_tpu.pipelines import soibean
     from vgan_tpu.utils.newick import parse_newick
 
-    with zipfile.ZipFile(
-        "/root/reference/share/vgan/soibean_dir/tree_dir/trees.zip"
-    ) as z:
-        tree = parse_newick(z.read("Ursidae.new.dnd").decode())
+    tree = parse_newick(ursidae_tree(0))
     rng = np.random.default_rng(0)
     R, P = 5000, tree.n_nodes
     path_map = -rng.uniform(20, 60, size=(R, P))

@@ -384,20 +384,23 @@ def test_alignment_detail_tsv(toy_graph, toy_reads, tmp_path):
     assert len(rows1) <= len(rows)
 
 
-def test_analyse_table_matches_loop(ref):
+def test_analyse_table_matches_loop():
     """Columnar analyse_table == literal per-read loop on a larger
     mixed-strand mapper batch (fwd/rev reads, damage-noised bases,
     multi-mapping paths) — full f64 equality of pathMap and counts25."""
     import pytest
 
-    from vgan_tpu.graph.synth import build_haplotype_graph, sample_reads
-    from vgan_tpu.io.fastx import read_fasta
+    from vgan_tpu.graph.synth import (
+        build_haplotype_graph,
+        mt_backbone,
+        sample_reads,
+    )
     from vgan_tpu.mapper import batch_map
     from vgan_tpu.mapper.giraffe import BatchedMapper
 
     if batch_map.load_native() is None:
         pytest.skip("native lib unavailable")
-    seqs, _ = read_fasta(str(ref / "test/input_files/rCRS.fa"))
+    seqs = [mt_backbone(0)]
     graph, _ = build_haplotype_graph(
         seqs[0][:5000], n_haplotypes=6, n_variants=60, seed=9
     )
@@ -418,23 +421,21 @@ def test_analyse_table_matches_loop(ref):
 
 
 def test_tree_mcmc_f32_matches_f64_estimates():
-    """f32 (TPU production dtype) vs f64 tree MCMC on the same seeds:
-    windowed agreement of the theta/position estimates (VERDICT r2 #6).
-    Tolerance: |mean theta diff| < 0.05 and |mean pos diff| < 0.05 over
-    a k=2 two-source world — individual chains may diverge step-by-step
-    (accept/reject is chaotic) but the posterior summaries must agree."""
-    import zipfile
-
+    """f32 vs f64 tree MCMC on the same seeds: windowed agreement of the
+    theta/position estimates (VERDICT r2 #6), on the seeded 8-leaf
+    Ursidae tree. Tolerance: |mean theta diff| < 0.05 and |mean pos
+    diff| < 0.05 over a k=2 two-source world — individual chains may
+    diverge step-by-step (accept/reject is chaotic) but the posterior
+    summaries must agree."""
     import jax
     import jax.numpy as jnp
 
+    from vgan_tpu.graph.synth import ursidae_tree
     from vgan_tpu.infer import tree_mcmc
+    from vgan_tpu.utils import precision
     from vgan_tpu.utils.newick import parse_newick
 
-    zpath = "/root/reference/share/vgan/soibean_dir/tree_dir/trees.zip"
-    with zipfile.ZipFile(zpath) as z:
-        text = z.read("Ursidae.new.dnd").decode()
-    tree = parse_newick(text)
+    tree = parse_newick(ursidae_tree(0))
     N = tree.n_nodes
     rng = np.random.default_rng(5)
     R = 120
@@ -461,15 +462,15 @@ def test_tree_mcmc_f32_matches_f64_estimates():
         pos = np.asarray(tr.pos, dtype=np.float64)
         return theta.mean(axis=(0, 1)), pos.mean(axis=(0, 1))
 
-    orig_F = tree_mcmc.F
+    orig = precision.compute_dtype
     try:
-        assert orig_F == jnp.float64  # CPU test environment
+        assert orig("sampler") == jnp.float64  # CPU test environment
         t64, p64 = run(np.float64)
-        tree_mcmc.F = jnp.float32
+        precision.compute_dtype = lambda use, backend=None: jnp.float32
         jax.clear_caches()
         t32, p32 = run(np.float32)
     finally:
-        tree_mcmc.F = orig_F
+        precision.compute_dtype = orig
         jax.clear_caches()
     # equal two-source world: theta ~ (0.5, 0.5) in both dtypes
     np.testing.assert_allclose(t32, t64, atol=0.05)
@@ -483,6 +484,7 @@ def test_abundance_mcmc_f32_matches_f64_estimates():
     import jax.numpy as jnp
 
     from vgan_tpu.infer import abundance_mcmc
+    from vgan_tpu.utils import precision
 
     rng = np.random.default_rng(3)
     T = 4
@@ -497,14 +499,14 @@ def test_abundance_mcmc_f32_matches_f64_estimates():
         assert res.samples.dtype == expect_dtype  # patch took
         return np.asarray(res.estimate, dtype=np.float64)
 
-    orig_F = abundance_mcmc.F
+    orig = precision.compute_dtype
     try:
-        assert orig_F == jnp.float64
+        assert orig("sampler") == jnp.float64
         e64 = run(np.float64)
-        abundance_mcmc.F = jnp.float32
+        precision.compute_dtype = lambda use, backend=None: jnp.float32
         jax.clear_caches()
         e32 = run(np.float32)
     finally:
-        abundance_mcmc.F = orig_F
+        precision.compute_dtype = orig
         jax.clear_caches()
     np.testing.assert_allclose(e32, e64, atol=0.02)

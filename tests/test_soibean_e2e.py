@@ -5,7 +5,11 @@ species; two sources -> both species found with proportions near 0.5."""
 import numpy as np
 import pytest
 
-from vgan_tpu.graph.synth import build_haplotype_graph, sample_reads
+from vgan_tpu.graph.synth import (
+    build_haplotype_graph,
+    mt_backbone,
+    sample_reads,
+)
 from vgan_tpu.mapper.giraffe import BatchedMapper
 from vgan_tpu.pipelines import soibean as sb
 from vgan_tpu.pipelines.soibean_runner import run_soibean_inference
@@ -13,10 +17,8 @@ from vgan_tpu.utils.newick import parse_newick
 
 
 @pytest.fixture(scope="module")
-def species_world(ref):
-    from vgan_tpu.io import fastx
-
-    seqs, _ = fastx.read_fasta(str(ref / "test/input_files/rCRS.fa"))
+def species_world():
+    seqs = [mt_backbone(0)]
     base = seqs[0][:4000]
     # 4 leaf haplotypes + internal-node paths named like soibean trees
     names = ["speciesA", "speciesB", "speciesC", "speciesD"]

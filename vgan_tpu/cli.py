@@ -23,7 +23,7 @@ from __future__ import annotations
 import sys
 from typing import List
 
-VERSION = "v3.0.0-tpu0.1"
+VERSION = "v3.0.0-jax0.1"
 
 
 def _take(args: List[str], i: int) -> str:

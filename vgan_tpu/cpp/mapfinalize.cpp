@@ -12,7 +12,7 @@
 //
 // This is the production replacement for the reference's in-process
 // giraffe invocation (`src/map_giraffe.cpp:82-86`) on the host side of
-// the TPU mapper; the score phase stays on device (sw_pallas).
+// the mapper; the score phase stays on device (sw_pallas).
 //
 // Built into libgamcodec.so (see Makefile).
 

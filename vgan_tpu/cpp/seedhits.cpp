@@ -8,7 +8,7 @@
 // splitmix64) and the diagonal convention of _batch_hits. Threaded
 // over the read range (the host has 2 cores).
 //
-// TPU-native replacement context: the reference seeds inside vg
+// Replacement context: the reference seeds inside vg
 // giraffe's C++ (`src/map_giraffe.cpp:82-86`); here seeding feeds the
 // device SW scorer (mapper/sw_pallas.py) with candidate windows.
 //

@@ -3,7 +3,7 @@
 Replaces the reference's pointer-based `vector<NodeInfo*>` + ODGI handle
 graph (`src/NodeInfo.h:28-42`, `src/readPathHandleGraph.cpp:14-37`,
 `src/readOG_Euka.h:29-140`) with columnar numpy arrays that can be
-shipped to TPU HBM:
+shipped to device memory:
 
 * node sequences as one uint8 code pool + CSR offsets,
 * topology as CSR edge lists,

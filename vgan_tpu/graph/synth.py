@@ -1,11 +1,15 @@
-"""Synthetic haplotype-graph builder.
+"""Seeded synthetic worlds.
 
 Generates HaploCart-shaped pangenome graphs (segmented backbone nodes
 of <=8bp like the real mtDNA graph, `src/test.cpp:627`, with single-node
 variant bubbles and one path per haplotype) from any reference
-sequence. Used for mtDNA-scale end-to-end tests and benchmarks since
-the reference's real hcfiles DB is distributed out-of-band (FTP,
-`src/Makefile:89-91`) and is not part of the repo snapshot.
+sequence, plus the seeded inputs that stand in for the reference's own
+fixtures: an mtDNA-length backbone in place of `rCRS.fa`, an 8-leaf
+Newick tree in place of soibean's `Ursidae.new.dnd`, and a small GFA
+world with reads in place of `test/reconstructInputSeq`. The real
+hcfiles/euka/soibean databases are distributed out-of-band (FTP,
+`src/Makefile:89-91`), so every test, benchmark and smoke run builds
+its inputs here from a seed.
 """
 from __future__ import annotations
 
@@ -15,6 +19,68 @@ import numpy as np
 
 from ..utils import dna
 from .packed import PackedGraph
+
+# rCRS (NC_012920.1): 16,569 bp; base composition A 5,124 / C 5,181 /
+# G 2,169 / T 4,094 (one N, counted as A here)
+MT_LENGTH = 16569
+MT_BASE_FREQ = np.array([5125, 5181, 2169, 4094], dtype=np.float64) / MT_LENGTH
+
+# the eight extant Ursidae species, in the accepted topology (giant
+# panda, then spectacled bear, then the Ursinae)
+URSIDAE = (
+    "Ailuropoda_melanoleuca",
+    ("Tremarctos_ornatus",
+     ("Melursus_ursinus",
+      ("Ursus_thibetanus",
+       ("Helarctos_malayanus",
+        ("Ursus_americanus", ("Ursus_arctos", "Ursus_maritimus")))))),
+)
+
+
+def mt_backbone(seed: int = 0, length: int = MT_LENGTH) -> str:
+    """Seeded mtDNA-like backbone: i.i.d. bases at rCRS's composition."""
+    rng = np.random.default_rng(seed)
+    codes = rng.choice(4, size=length, p=MT_BASE_FREQ)
+    return "".join(np.array(list("ACGT"))[codes])
+
+
+def ursidae_tree(seed: int = 0) -> str:
+    """Seeded Newick tree with the eight extant Ursidae species as
+    leaves, internal nodes named N1..N7 in post-order (root last) and
+    branch lengths drawn uniformly from [0.005, 0.1]."""
+    rng = np.random.default_rng(seed)
+    labels = iter(f"N{i}" for i in range(1, 8))
+
+    def clade(c):
+        if isinstance(c, str):
+            return c
+        kids = ",".join(
+            f"{clade(x)}:{rng.uniform(0.005, 0.1):.5f}" for x in c
+        )
+        return f"({kids}){next(labels)}"
+
+    return clade(URSIDAE) + ";"
+
+
+def toy_gfa_world(seed: int = 0, length: int = 600, n_paths: int = 5,
+                  n_variants: int = 12, n_reads: int = 40):
+    """Small seeded GFA world: `n_paths` haplotype paths seq_1..seq_N
+    over a `length`-bp backbone and `n_reads` 100-bp reads sampled
+    round-robin from every path. Returns (gfa_text, reads)."""
+    from ..io.gfa import format_gfa
+
+    graph, _ = build_haplotype_graph(
+        mt_backbone(seed, length), n_haplotypes=n_paths,
+        n_variants=n_variants, seed=seed,
+        hap_names=[f"seq_{i + 1}" for i in range(n_paths)],
+    )
+    reads = []
+    per = -(-n_reads // n_paths)
+    for p in range(n_paths):
+        for r in sample_reads(graph, p, n_reads=per, seed=seed + p):
+            r.name = f"read{len(reads)}"
+            reads.append(r)
+    return format_gfa(graph), reads[:n_reads]
 
 
 def build_haplotype_graph(
@@ -157,3 +223,45 @@ def sample_reads(
             )
         )
     return out
+
+
+def taxa_world(n_taxa: int = 334, bp_per: int = 5120, node_len: int = 16,
+               seed: int = 0):
+    """euka-shaped world at the real clade-table width: `n_taxa` taxa
+    (`src/MCMC.cpp:1193`'s 1/334), one ~5 kb stored path per taxon over
+    its own node range, 21 entropy bins per taxon plus the whole-range
+    row (`src/Euka.cpp:602-608`). Returns (graph, clades, chunks)."""
+    from ..pipelines import euka as ek
+
+    rng = np.random.default_rng(seed)
+    per = bp_per // node_len
+    n_nodes = per * n_taxa
+    pool = rng.integers(0, 4, size=n_nodes * node_len,
+                        dtype=np.int64).astype(np.uint8)
+    steps = [np.arange(i * per, (i + 1) * per, dtype=np.int32)
+             for i in range(n_taxa)]
+    support = np.zeros((n_nodes, n_taxa), dtype=bool)
+    for j, st in enumerate(steps):
+        support[st, j] = True
+    graph = PackedGraph(
+        min_id=1,
+        node_seq_pool=pool,
+        node_off=np.arange(n_nodes + 1, dtype=np.int64) * node_len,
+        edge_from=np.arange(n_nodes - 1, dtype=np.int32),
+        edge_from_rev=np.zeros(n_nodes - 1, dtype=bool),
+        edge_to=np.arange(1, n_nodes, dtype=np.int32),
+        edge_to_rev=np.zeros(n_nodes - 1, dtype=bool),
+        path_names=[f"taxon{i}" for i in range(n_taxa)],
+        path_steps_node=steps,
+        path_steps_rev=[np.zeros(len(st), dtype=bool) for st in steps],
+        path_support=support,
+    )
+    clades, chunks = [], []
+    for i in range(n_taxa):
+        lo, hi = 1 + i * per, (i + 1) * per
+        clades.append(ek.CladeInfo(id=i, name=f"taxon{i}", dist=0.05,
+                                   n_paths=1, start_node=lo, end_node=hi))
+        bounds = np.linspace(lo, hi, 22).astype(int)
+        chunks.append([(int(bounds[j]), int(bounds[j + 1]), 1.5)
+                       for j in range(21)] + [(lo, hi, 0.5)])
+    return graph, clades, chunks

@@ -162,6 +162,18 @@ def read_fastq(path: str) -> List[Read]:
     return list(iter_fastq(path))
 
 
+def write_fastq(path: str, reads: List[Read]) -> None:
+    """Write reads as FASTQ (phred+33); reads without qualities get 'I'."""
+    with open(path, "w") as f:
+        for r in reads:
+            qual = (
+                bytes(q + 33 for q in r.qual).decode()
+                if r.qual is not None
+                else "I" * len(r.seq)
+            )
+            f.write(f"@{r.name}\n{r.seq}\n+\n{qual}\n")
+
+
 def iter_interleaved(path: str) -> Iterator[Tuple[Read, Read]]:
     it = iter_fastq(path)
     while True:

@@ -22,20 +22,40 @@ _lib = None
 
 
 def build() -> bool:
-    try:
-        subprocess.run(
-            ["make", "-C", _CPP_DIR], check=True, capture_output=True
-        )
+    """Compile the native library from vgan_tpu/cpp at first use.
+
+    Processes that start together (e.g. test workers) serialize on a
+    lock file; each build writes a private temporary name that is
+    renamed into place, so no process ever loads a half-written
+    library. Returns True when the library exists afterwards."""
+    import fcntl
+
+    if os.path.exists(_LIB_PATH):
         return True
-    except (subprocess.CalledProcessError, FileNotFoundError):
-        return False
+    with open(os.path.join(_CPP_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(_LIB_PATH):
+            return True
+        tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+        try:
+            subprocess.run(
+                ["make", "-C", _CPP_DIR, f"OUT={tmp}"],
+                check=True, capture_output=True,
+            )
+            os.replace(tmp, _LIB_PATH)
+        except (subprocess.CalledProcessError, FileNotFoundError):
+            return False
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return True
 
 
 def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH) and not build():
+    if not build():
         return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)

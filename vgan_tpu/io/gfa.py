@@ -59,3 +59,28 @@ def parse_gfa(path: str):
                     steps.append((int(cur), rev))
                 paths.append((name, steps))
     return segments, paths, links
+
+
+def format_gfa(graph) -> str:
+    """GFA 1.0 text (S/L/P lines) of a PackedGraph; `parse_gfa` and
+    `PackedGraph.from_gfa` read it back to the same arrays."""
+    from ..utils import dna
+
+    lines = ["H\tVN:Z:1.0"]
+    for i in range(graph.n_nodes):
+        seq = dna.decode(graph.node_seq_pool[graph.node_off[i] : graph.node_off[i + 1]])
+        lines.append(f"S\t{graph.min_id + i}\t{seq}")
+    for f, fr, t, tr in zip(graph.edge_from, graph.edge_from_rev,
+                            graph.edge_to, graph.edge_to_rev):
+        lines.append(
+            f"L\t{graph.min_id + int(f)}\t{'-' if fr else '+'}\t"
+            f"{graph.min_id + int(t)}\t{'-' if tr else '+'}\t0M"
+        )
+    for name, steps, revs in zip(graph.path_names, graph.path_steps_node,
+                                 graph.path_steps_rev):
+        walk = ",".join(
+            f"{graph.min_id + int(n)}{'-' if r else '+'}"
+            for n, r in zip(steps, revs)
+        )
+        lines.append(f"P\t{name}\t{walk}\t*")
+    return "\n".join(lines) + "\n"

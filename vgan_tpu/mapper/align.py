@@ -1,6 +1,6 @@
 """Affine-gap local alignment with traceback.
 
-The extension/alignment stage of the TPU-native giraffe-equivalent
+The extension/alignment stage of the giraffe-equivalent
 mapper (SURVEY.md §2.2: minimizer seeding + gapless extension +
 banded Smith-Waterman). Scoring follows vg's default aligner
 (match 1, mismatch 4, gap open 6, gap extend 1, full-length bonus 5),
@@ -8,7 +8,7 @@ which is what `vg giraffe -b fast` uses in the reference invocation
 (`src/map_giraffe.cpp:24-164`).
 
 This module is the host reference implementation (vectorized numpy
-rows); the Pallas wavefront kernel (mapper/sw_pallas.py) reproduces
+rows); the batched device scorer (mapper/sw_pallas.py) reproduces
 its scores on device for the heavy batch phase. Traceback runs on host
 for selected winners only.
 """

@@ -320,12 +320,10 @@ def _load_native():
     _native_checked = True
     try:
         import ctypes
-        import os
 
         from ..io.gam_native import _LIB_PATH, build
 
-        if not os.path.exists(_LIB_PATH):
-            build()
+        build()
         lib = ctypes.CDLL(_LIB_PATH)
         lib.graph_align.restype = ctypes.c_int64
         lib.graph_align.argtypes = [

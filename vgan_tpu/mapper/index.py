@@ -6,7 +6,7 @@ haplotype path's linearized sequence and posted as *graph positions*
 (node, oriented offset) so occurrences shared by many near-identical
 haplotypes dedup to one posting, with a representative (path, offset)
 retained for the banded-extension stage. Lookups are a binary search
-into the sorted hash array (TPU-friendly: `searchsorted` instead of
+into the sorted hash array (device-friendly: `searchsorted` instead of
 pointer-chasing hash probes).
 """
 from __future__ import annotations

@@ -19,7 +19,7 @@ on-the-fly combiner, instead of materializing the reference's
 
 The jax path (`dinuc_gather`) evaluates the combine rule vectorized for
 arbitrary (L, l) index arrays so kernels never touch a 64MB+ dense
-[L, l, 4, 4] tensor in VMEM.
+[L, l, 4, 4] tensor in device memory.
 """
 from __future__ import annotations
 

@@ -2,19 +2,20 @@
 
 The reference's only parallel structure is OpenMP threads + fork/FIFO
 pipelines on one host (`src/HaploCart.cpp:313-383`, SURVEY.md §2.9).
-The TPU-native layout:
+The device layout:
 
-* **dp** (data parallel): read/mapping batches shard across chips;
+* **dp** (data parallel): read/mapping batches shard across cards;
   per-node accumulators and per-path log-likelihood vectors merge with
-  `psum` over ICI.
+  `psum`.
 * **tp** (tensor parallel): the node->path support matrix shards along
-  the path axis; each chip computes its slice of final_vec and the
+  the path axis; each card computes its slice of final_vec and the
   argmax is taken over the gathered vector.
-* MCMC chains map across chips (chain parallelism) — see
+* MCMC chains map across cards (chain parallelism) — see
   infer/tree_mcmc.py; chain statistics merge host-side.
 
 Everything compiles against an abstract `jax.sharding.Mesh`, so the
-same code runs on one chip, a v5e slice, or a CPU mesh in tests.
+same code runs on one card, the cards of one host (joined all to all,
+so no mesh shape is tied to a topology), or a CPU mesh in tests.
 """
 from __future__ import annotations
 
@@ -23,11 +24,17 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
+from jax.lax import Precision
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from ..pipelines.haplocart_device import HcBatch, HcTables, mapping_scores
+from ..pipelines.haplocart_device import (
+    HcBatch,
+    HcTables,
+    mapping_scores,
+    segment_sum_fixed_order,
+)
 
 
 def make_mesh(n_devices: Optional[int] = None, dp: Optional[int] = None,
@@ -47,10 +54,12 @@ def make_mesh(n_devices: Optional[int] = None, dp: Optional[int] = None,
 # ----------------------------------------------------------- auto selection
 _DEVICE_LIMIT: Optional[int] = None
 _AUTO_CACHE: dict = {}
-# engage tp once the replicated support matrix would exceed this many
-# bytes per chip (the real HC DB is 11,825 x 5,179 f64 = ~490MB,
-# `src/load.cpp:284-292`; dp-only would replicate that on every chip)
-TP_BYTES_THRESHOLD = 128 * 1024 * 1024
+# engage tp once the support matrix that dp replicates on every card
+# would exceed 1/128 of an 80 GB card (640 MiB), leaving the rest of
+# the card to the mapper's batches and XLA's workspace. The real HC DB
+# (11,825 x 5,179 in f64 = ~490 MB, `src/load.cpp:284-292`) stays
+# replicated: dp alone then moves no support bytes between cards.
+TP_BYTES_THRESHOLD = 80 * 2**30 // 128
 
 
 def set_device_limit(n: Optional[int]) -> None:
@@ -63,7 +72,7 @@ def set_device_limit(n: Optional[int]) -> None:
 def auto_mesh(support_bytes: int = 0) -> Optional[Mesh]:
     """Mesh over all local devices — the production default for the
     CLI runners; None when a single device is visible (or the limit
-    disables sharding). The TPU-native successor of the reference's
+    disables sharding). The successor of the reference's
     OpenMP thread pool (`src/HaploCart.cpp:408-421`).
 
     dp takes the whole mesh unless `support_bytes` (the caller's
@@ -93,7 +102,7 @@ def sharded_score_fn(mesh: Mesh, bep: float = 1e-4,
                      consensus: bool = False):
     """Build the pjit-ed haplocart scoring step over (dp, tp):
     mappings shard over dp, the support matrix (and final_vec) over tp;
-    the per-node accumulator merges with psum over ICI (dp)."""
+    the per-node accumulator merges with psum over dp."""
 
     @partial(
         shard_map,
@@ -116,10 +125,10 @@ def sharded_score_fn(mesh: Mesh, bep: float = 1e-4,
         A = mapping_scores(batch, t, bep, consensus)
         d = A - batch.b
         n_nodes = t.support.shape[0]
-        c = jax.ops.segment_sum(d, batch.node, num_segments=n_nodes)
+        c = segment_sum_fixed_order(d, batch.node, n_nodes)
         c = jax.lax.psum(c, "dp")
         total_b = jax.lax.psum(batch.b.sum(), "dp")
-        return total_b + c @ t.support
+        return total_b + jnp.dot(c, t.support, precision=Precision.HIGHEST)
 
     return jax.jit(step)
 
@@ -171,7 +180,7 @@ def shard_tables(t: HcTables, mesh: Mesh) -> HcTables:
 
 def sharded_euka_score_fn(mesh: Mesh):
     """Data-parallel euka two-model scorer over the dp axis
-    (the TPU equivalent of euka's OpenMP read loop,
+    (the device equivalent of euka's OpenMP read loop,
     `src/readGAM_Euka.h:41-649` / SURVEY §2.9): the [B, L] aligned
     batch shards over dp, damage/quality tables replicate, and the
     per-read (in_clade, not_in_clade) outputs stay dp-sharded — no

@@ -1,13 +1,13 @@
 """Multi-host (multi-process) execution.
 
 The reference's only cross-process structure is the fork+FIFO chain on
-one machine (`src/HaploCart.cpp:313-383`). The TPU-native replacement
+one machine (`src/HaploCart.cpp:313-383`). The replacement here
 (SURVEY §2.9 communication-backend row): each host runs one process,
 `jax.distributed.initialize` joins them into one JAX runtime, reads
 shard across processes by rank, per-host batches land on the local
 chips of a GLOBAL device mesh, and the per-path log-likelihood
-accumulator merges with a cross-host psum (ICI within a slice, DCN
-across hosts). Host 0 performs all file output.
+accumulator merges with a cross-host psum (NVLink within a host, the
+network across hosts). Host 0 performs all file output.
 
 Activation: `vgan <cmd> ... --coordinator host:port --nproc N
 --procid I` or the VGAN_COORDINATOR / VGAN_NPROC / VGAN_PROCID
@@ -47,10 +47,24 @@ def init_distributed(
         else int(os.environ.get("VGAN_PROCID", "0"))
     )
     jax.distributed.initialize(
-        coordinator, num_processes=num_processes, process_id=process_id
+        coordinator, num_processes=num_processes, process_id=process_id,
+        local_device_ids=local_device_ids(coordinator, process_id),
     )
     _initialized = True
     return True
+
+
+def local_device_ids(coordinator: str, process_id: int) -> Optional[List[int]]:
+    """Cards this process drives. When every process runs on this host
+    (the coordinator is a loopback address), process i takes card i
+    alone: a JAX process reserves most of each card it opens, so N
+    processes that each opened every card would fail for want of
+    memory. Processes on separate hosts keep all of their host's
+    cards (None)."""
+    host = coordinator.rsplit(":", 1)[0].strip("[]")
+    if host in ("localhost", "127.0.0.1", "::1"):
+        return [process_id]
+    return None
 
 
 def active() -> bool:
@@ -181,6 +195,7 @@ def score_alignments_multihost(db, local_alignments, bep: float = 1e-4,
     import jax
     import jax.numpy as jnp
     from jax.experimental import multihost_utils
+    from jax.lax import Precision
     from jax.sharding import NamedSharding, PartitionSpec as P
     from jax import shard_map
     from functools import partial
@@ -190,11 +205,12 @@ def score_alignments_multihost(db, local_alignments, bep: float = 1e-4,
         batch_from_alignments,
         make_tables_from_db,
         mapping_scores,
-        _default_dtype,
+        segment_sum_fixed_order,
     )
+    from ..utils import precision
 
     mesh = global_mesh()
-    tables = make_tables_from_db(db, _default_dtype())
+    tables = make_tables_from_db(db, precision.compute_dtype("scorer"))
     batch = batch_from_alignments(db, local_alignments, bucket_m=False)
     if batch is None:
         # this host may legitimately hold zero mapped reads
@@ -289,10 +305,10 @@ def score_alignments_multihost(db, local_alignments, bep: float = 1e-4,
         A = mapping_scores(bt, t, bep, is_consensus_fasta)
         d = A - bt.b
         n_nodes = t.support.shape[0]
-        c = jax.ops.segment_sum(d, bt.node, num_segments=n_nodes)
+        c = segment_sum_fixed_order(d, bt.node, n_nodes)
         c = jax.lax.psum(c, "dp")
         total_b = jax.lax.psum(bt.b.sum(), "dp")
-        return total_b + c @ t.support
+        return total_b + jnp.dot(c, t.support, precision=Precision.HIGHEST)
 
     out = jax.jit(step)(gbatch, gtables)
     return np.asarray(jax.device_get(out), dtype=np.float64)

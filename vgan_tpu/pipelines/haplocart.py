@@ -1,6 +1,6 @@
 """HaploCart: mtDNA haplogroup classification.
 
-TPU-native reformulation of `src/HaploCart.cpp` + `src/update_likelihood.cpp`
+Device reformulation of `src/HaploCart.cpp` + `src/update_likelihood.cpp`
 + `src/process_mapping.cpp`.
 
 Key observation driving the design: the reference's innermost loop over
@@ -11,9 +11,9 @@ all paths (`src/process_mapping.cpp:54-88`) adds, per mapping m, a
     final_vec = (sum_m B_m) * 1  +  c^T S,     c[node] = sum_{m on node} (A_m - B_m)
 
 where S is the [n_nodes, n_paths] support bitmatrix. The reads x bases
-per-base probability math produces the per-mapping scalars (VPU work);
+per-base probability math produces the per-mapping scalars (elementwise);
 the path dimension collapses to ONE matrix-vector product against S
-(MXU work) — instead of the reference's reads x mappings x 5,179
+(one contraction) — instead of the reference's reads x mappings x 5,179
 scalar loop (`src/HaploCart.cpp:408-421`).
 
 Reference quirks preserved for output parity (documented inline):

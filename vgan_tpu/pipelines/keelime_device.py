@@ -21,7 +21,7 @@ reuse one compiled executable instead of recompiling per shape.
 
 The inner loop is a diagonal-band contraction of the pair-score tensor
 M[n, i, j] = TABLE[a[n, i], b[n, j]]: an elementwise gather plus a
-scan of shifted row-sums — pure VPU work with static shapes.
+scan of shifted row-sums — elementwise work with static shapes.
 """
 from __future__ import annotations
 

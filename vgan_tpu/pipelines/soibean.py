@@ -1,6 +1,6 @@
 """soibean: species identification / k-source mixture via tree MCMC.
 
-TPU-native reformulation of `src/soibean.cpp` + `src/getLCAfromGAM.h`
+Device reformulation of `src/soibean.cpp` + `src/getLCAfromGAM.h`
 + `src/MCMC.cpp:522-1088`.
 
 Design: analyse_GAM's per-read x per-path x per-base triple loop

@@ -2,7 +2,7 @@
 
 Replaces the vendored spimap (`dep/spimap`, used at
 `src/soibean.cpp:567-594`) with a small parser producing the arrays the
-TPU tree-MCMC consumes: parent[i], children (padded), dist[i],
+device tree-MCMC consumes: parent[i], children (padded), dist[i],
 longname[i]. Node indices follow spimap's convention of leaves first
 (in parse order) then internal nodes, root last — only internal
 consistency matters downstream (path names are the join key).
